@@ -32,8 +32,8 @@ def run_one(name, steps, dtype, out_dms=None, descreen_horizon=None,
             mts_inner=0, dt=0.001, constraints=False):
     import numpy as np
 
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms, save_dms
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+    from openmm_agbnp_jax.io.dms import load_dms, save_dms
+    from openmm_agbnp_jax.md.simulation import Simulation
 
     here = os.path.dirname(os.path.abspath(__file__))
     path = os.path.join(here, "data", f"{name}.dms")
@@ -86,12 +86,9 @@ def main():
     if dh not in (None, "cutoff"):
         dh = float(dh)
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser("~/.jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from openmm_agbnp_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     platform = jax.devices()[0].platform
     dtype = np.float32 if platform != "cpu" else np.float64

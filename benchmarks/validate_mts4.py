@@ -1,7 +1,7 @@
 """Protocol-length validation of the 4 fs r-RESPA + SHAKE/RATTLE
 configuration (mts_inner=2, dt=4 fs outer / 2 fs bonded, X-H constraints).
 
-VERDICT r4 item 5: the re-measured 4 fs MTS numbers can only headline if
+The 4 fs MTS configuration can only headline if
 the configuration is validated at protocol length like mts_wu4 was
 (benchmarks/validate_mts.py).  Same two checks over the same simulated
 time (10 ps):
@@ -26,13 +26,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from openmm_agbnp_jax.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from benchmarks.validate_mts import CONFIGS, kinetic_energy
-from openmm_agbnp_plugin_tpu.io.dms import load_dms
-from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+from openmm_agbnp_jax.io.dms import load_dms
+from openmm_agbnp_jax.md.simulation import Simulation
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KB = 0.00831446261815324  # kJ/mol/K

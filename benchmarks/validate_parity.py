@@ -39,25 +39,22 @@ def main():
     # x64 on: float64 references on CPU, float64 accumulators (mixed
     # precision) on device
     jax.config.update("jax_enable_x64", True)
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser("~/.jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from openmm_agbnp_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
 
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.models.agbnp_jax import AGBNPModel
-    from openmm_agbnp_plugin_tpu.models.oracle import AGBNPParams
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.models.agbnp_jax import AGBNPModel
+    from openmm_agbnp_jax.models.oracle import AGBNPParams
 
     os.makedirs(CACHE, exist_ok=True)
     dtype = np.float64 if args.mode == "cpu" else np.float32
 
     if args.mode == "cpu":
         # golden anchors through the fast path
-        from openmm_agbnp_plugin_tpu.io.gaussvol_dat import load_gaussvol_dat
+        from openmm_agbnp_jax.io.gaussvol_dat import load_gaussvol_dat
 
         pos, radius, charge, gamma, alpha, ish = load_gaussvol_dat(
             os.path.join(os.path.dirname(HERE), "tests", "fixtures",

@@ -1,18 +1,20 @@
-"""Multi-chip single-system MD example.
+"""Multi-device single-system MD example.
 
 Runs trp-cage AGBNP1 Langevin MD with every step's pair phases and
 fixed-topology overlap-tree passes sharded over an "atoms" device mesh
 (`Simulation.make_langevin_runner(mesh=...)`;
 `parallel/sharding.py::sharded_energy_forces`).  The reference plugin is
 strictly single-device (multiple OpenCL contexts rejected,
-reference OpenCLAGBNPKernels.cpp:410-412) — this capability is TPU-native
-only: XLA inserts the all_gather/psum_scatter/psum collectives over ICI.
+reference OpenCLAGBNPKernels.cpp:410-412); here XLA inserts the
+all_gather/psum_scatter/psum collectives between the devices.
 
-On a host with one (or zero) accelerators this provisions a virtual
-8-device CPU mesh, which validates the sharding end-to-end; on a real
-TPU pod slice the same code scales over the chips.
+It runs on the first N_DEVICES devices JAX has and never picks a platform
+itself.  To rehearse on the CPU, choose it from outside:
 
-Usage: python examples/multichip_md.py [nsteps]
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python examples/multichip_md.py [nsteps]
+
+Usage: python examples/multichip_md.py [nsteps]   (f32, 4 devices)
 """
 
 import os
@@ -20,27 +22,14 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-N_DEVICES = 8
-
-flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = (
-        flags + f" --xla_force_host_platform_device_count={N_DEVICES}").strip()
-
-from openmm_agbnp_plugin_tpu.runtime.devices import (
-    probe_accelerators as _accelerators)
-
 import jax
-
-if _accelerators() < N_DEVICES:
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)  # f64 on the CPU mesh
-
 import numpy as np
 
-from openmm_agbnp_plugin_tpu.io.dms import load_dms
-from openmm_agbnp_plugin_tpu.md.simulation import Simulation
-from openmm_agbnp_plugin_tpu.parallel.sharding import atom_mesh
+from openmm_agbnp_jax.io.dms import load_dms
+from openmm_agbnp_jax.md.simulation import Simulation
+from openmm_agbnp_jax.parallel.sharding import atom_mesh
+
+N_DEVICES = 4
 
 
 def main():
@@ -48,8 +37,7 @@ def main():
     here = os.path.dirname(os.path.abspath(__file__))
     dms = load_dms(os.path.join(here, "..", "benchmarks", "data",
                                 "trpcage_agbnp1.dms"))
-    dtype = np.float32 if jax.devices()[0].platform == "tpu" else np.float64
-    sim = Simulation(dms, version=1, dtype=dtype)
+    sim = Simulation(dms, version=1, dtype=np.float32)
 
     mesh = atom_mesh(N_DEVICES)
     print(f"devices: {len(mesh.devices.ravel())} x "

@@ -4,7 +4,7 @@ The reference ecosystem runs AGBNP replica exchange through external
 host-side schedulers (ASyncRE) with one device per replica; here the whole
 REMD loop — per-replica AGBNP1 dynamics and the Metropolis rung swaps —
 runs inside one jit, with the replica axis sharded over however many
-devices jax exposes (all replicas fit on one TPU chip at this size).
+devices jax exposes (all replicas fit on one device at this size).
 
 Usage:  python examples/remd_trpcage.py [ncycles] [steps_per_cycle]
 """
@@ -18,9 +18,9 @@ import numpy as np
 
 
 def main():
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
-    from openmm_agbnp_plugin_tpu.parallel.remd import (
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.md.simulation import Simulation
+    from openmm_agbnp_jax.parallel.remd import (
         TemperatureREMD, geometric_ladder)
 
     ncycles = int(sys.argv[1]) if len(sys.argv) > 1 else 8

@@ -4,7 +4,7 @@ vmapped AGBNP evaluation.
 The reference plugin scores one conformation per Context evaluation
 (openmmapi/src/AGBNPForceImpl.cpp:32-36), so rescoring B poses costs B
 serial GPU round trips.  Here the whole batch is one jit executable on the
-TPU — the docking/rescoring workload AGBNP was designed for (see the
+device — the docking/rescoring workload AGBNP was designed for (see the
 AGBNP/BEDAM literature cited in the reference README).
 
 Usage:  python examples/rescore_conformers.py [nposes] [batch_reps]
@@ -20,8 +20,8 @@ import numpy as np
 
 
 def main():
-    from openmm_agbnp_plugin_tpu import AGBNPForce, ConformerScorer
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
+    from openmm_agbnp_jax import AGBNPForce, ConformerScorer
+    from openmm_agbnp_jax.io.dms import load_dms
 
     nposes = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5

@@ -1,7 +1,7 @@
 """Install smoke test: minimize -> Langevin equilibration -> Verlet
 energy-conservation check on trp-cage with AGBNP1 implicit solvent.
 
-The TPU-native equivalent of the reference's documented install test
+The equivalent of the reference's documented install test
 (reference example/test_agbnp.py: DesmondDMSFile + createSystem(OPLS=True,
 implicitSolvent='AGBNP'), minimizeEnergy, 10000 Langevin steps at 0.5 fs /
 300 K, then 1000 Verlet steps at 1 fs watching total-energy drift;
@@ -19,21 +19,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+from openmm_agbnp_jax.utils.compile_cache import enable_compile_cache
 
 
 def main(system=None):
     import jax.numpy as jnp
 
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.md.minimize import fire_minimize
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.md.minimize import fire_minimize
+    from openmm_agbnp_jax.md.simulation import Simulation
 
+    enable_compile_cache()
     # step counts overridable so the CI smoke test can run this exact code
     # path in seconds (tests/test_example.py)
     n_lang = int(os.environ.get("AGBNP_TEST_LANGEVIN_STEPS", "10000"))
@@ -52,7 +48,7 @@ def main(system=None):
 
     sim = Simulation(dms, version=1, cutoff=None, dtype=dtype, skin=0.25)
     fn = sim.force_fn()
-    fn_jit = jax.jit(fn)  # eager eval would round-trip per op on remote TPU
+    fn_jit = jax.jit(fn)
     e0 = fn_jit(sim.positions)[0]
     print(f"Initial potential energy: {float(e0):.3f} kJ/mol")
 

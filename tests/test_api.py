@@ -5,7 +5,7 @@ import warnings
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu import AGBNPForce, Context, NonbondedMethod
+from openmm_agbnp_jax import AGBNPForce, Context, NonbondedMethod
 
 
 def _build_force(params, pos, version=1):
@@ -224,7 +224,7 @@ def test_min_image_triclinic_matches_image_search():
     """The sequential c/b/a wrap equals brute-force 27-image minimum
     distances for random reduced triclinic cells (within the half-width
     validity bound)."""
-    from openmm_agbnp_plugin_tpu.ops.born import min_image
+    from openmm_agbnp_jax.ops.born import min_image
 
     rng = np.random.default_rng(11)
     box = np.array([[4.0, 0.0, 0.0],

@@ -15,7 +15,7 @@ import pytest
 
 @pytest.fixture(scope="module")
 def trpcage_dms(fixture_dir):
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
+    from openmm_agbnp_jax.io.dms import load_dms
 
     return load_dms(os.path.join(os.path.dirname(fixture_dir), "..",
                                  "benchmarks", "data", "trpcage_agbnp1.dms"))
@@ -35,7 +35,7 @@ def test_constraint_tables_loaded(trpcage_dms):
 
 
 def test_shake_projects_and_rattle_orthogonal(trpcage_dms):
-    from openmm_agbnp_plugin_tpu.md.constraints import Constraints
+    from openmm_agbnp_jax.md.constraints import Constraints
 
     cons = Constraints.from_dms(trpcage_dms)
     pos = jnp.asarray(trpcage_dms.positions)
@@ -57,7 +57,7 @@ def test_shake_projects_and_rattle_orthogonal(trpcage_dms):
 def test_constrained_langevin_2fs(trpcage_dms):
     """Constrained MD holds X-H bond lengths at a 2 fs step — the step size
     the unconstrained setup cannot take (X-H stretch period ~10 fs)."""
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+    from openmm_agbnp_jax.md.simulation import Simulation
 
     sim = Simulation(trpcage_dms, version=1, dtype=np.float64,
                      constraints=True)
@@ -73,7 +73,7 @@ def test_block_solver_matches_jacobi(trpcage_dms):
     """The star-cluster 3x3 block solver and the global Jacobi iteration
     project onto the same constraint manifold (both are mass-weighted
     least-norm corrections, so the converged answers coincide)."""
-    from openmm_agbnp_plugin_tpu.md.constraints import Constraints
+    from openmm_agbnp_jax.md.constraints import Constraints
 
     cons = Constraints.from_dms(trpcage_dms, tol=1e-12)
     assert cons.clusters is not None  # trpcage's tables are a star forest
@@ -96,7 +96,7 @@ def test_block_solver_matches_jacobi(trpcage_dms):
 def test_non_star_tables_fall_back_to_jacobi():
     """A constraint chain (0-1, 1-2 with atom 1 on both sides) is not a
     star forest; the solver must fall back to Jacobi and still converge."""
-    from openmm_agbnp_plugin_tpu.md.constraints import Constraints
+    from openmm_agbnp_jax.md.constraints import Constraints
 
     idx = np.array([[0, 1], [1, 2]])
     d = np.array([0.1, 0.1])
@@ -114,8 +114,8 @@ def test_non_star_tables_fall_back_to_jacobi():
 @pytest.mark.slow
 def test_constrained_verlet_energy(trpcage_dms):
     """SHAKE/RATTLE Verlet conserves energy at 1 fs with constraints on."""
-    from openmm_agbnp_plugin_tpu.md.integrators import kinetic_energy
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+    from openmm_agbnp_jax.md.integrators import kinetic_energy
+    from openmm_agbnp_jax.md.simulation import Simulation
 
     sim = Simulation(trpcage_dms, version=1, dtype=np.float64,
                      constraints=True)

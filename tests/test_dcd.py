@@ -11,7 +11,7 @@ import struct
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu.io.dcd import read_dcd, write_dcd
+from openmm_agbnp_jax.io.dcd import read_dcd, write_dcd
 
 
 def test_dcd_round_trip(tmp_path):
@@ -64,8 +64,8 @@ def test_dcd_header_layout(tmp_path):
 def test_run_md_reports_frames(tmp_path):
     """run_md(report_interval=k) returns snapshots at the requested steps;
     the final snapshot is exactly final_pos; frames write out as DCD."""
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.md.simulation import Simulation
 
     path = os.path.join(os.path.dirname(__file__), "..", "benchmarks",
                         "data", "trpcage_agbnp1.dms")
@@ -91,7 +91,7 @@ def test_maxwell_boltzmann_velocities():
     COM removal, zero total momentum."""
     import jax
 
-    from openmm_agbnp_plugin_tpu.md.integrators import (
+    from openmm_agbnp_jax.md.integrators import (
         KB, maxwell_boltzmann_velocities)
 
     rng = np.random.default_rng(2)

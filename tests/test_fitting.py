@@ -4,16 +4,16 @@ against finite differences, and an end-to-end recovery fit."""
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu.api.fitting import ParameterGradients
-from openmm_agbnp_plugin_tpu.models.agbnp_jax import AGBNPModel
-from openmm_agbnp_plugin_tpu.models.oracle import AGBNPParams
+from openmm_agbnp_jax.api.fitting import ParameterGradients
+from openmm_agbnp_jax.models.agbnp_jax import AGBNPModel
+from openmm_agbnp_jax.models.oracle import AGBNPParams
 
 
 @pytest.fixture(scope="module")
 def fit_system(fixture_dir):
     import os
 
-    from openmm_agbnp_plugin_tpu.io.gaussvol_dat import load_gaussvol_dat
+    from openmm_agbnp_jax.io.gaussvol_dat import load_gaussvol_dat
 
     pos, radius, charge, gamma, alpha, ish = load_gaussvol_dat(
         os.path.join(fixture_dir, "gaussvol.dat"))
@@ -21,7 +21,7 @@ def fit_system(fixture_dir):
     params = AGBNPParams(radius=radius[:n], gamma=gamma[:n], alpha=alpha[:n],
                          charge=charge[:n], ishydrogen=ish[:n])
     model = AGBNPModel(params, version=1, dtype=np.float64,
-                       pair_kernel=False, positions=pos[:n])
+                       positions=pos[:n])
     return model, pos[:n]
 
 

@@ -15,13 +15,13 @@ import os
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu.io.gaussvol_dat import (
+from openmm_agbnp_jax.io.gaussvol_dat import (
     load_agbnp_gbsa_dat,
     load_gaussvol_dat,
     load_gaussvol_xyz,
 )
-from openmm_agbnp_plugin_tpu.models.constants import AGBNP_RADIUS_INCREMENT
-from openmm_agbnp_plugin_tpu.models.oracle import (
+from openmm_agbnp_jax.models.constants import AGBNP_RADIUS_INCREMENT
+from openmm_agbnp_jax.models.oracle import (
     AGBNPParams,
     agbnp1_energy_forces,
     gvolsa_energy_forces,
@@ -67,7 +67,7 @@ def test_gaussvol_xyz_oracle_vs_pipeline(xyz_system):
     screener and every gamma live."""
     import jax
 
-    from openmm_agbnp_plugin_tpu.models.agbnp_jax import AGBNPModel
+    from openmm_agbnp_jax.models.agbnp_jax import AGBNPModel
 
     _, params, pos = xyz_system
     e0_o, f0_o, (e1_pass, e2_pass) = gvolsa_energy_forces(params, pos)
@@ -119,7 +119,7 @@ def test_agbnp_gbsa_matches_dat_heavy_subset(fixture_dir):
     assert set(np.round(charge, 3)) <= {-1.001, 0.001, 1.001}
 
     # GaussVol v0 on the heavy subset: oracle vs pipeline
-    from openmm_agbnp_plugin_tpu.models.agbnp_jax import AGBNPModel
+    from openmm_agbnp_jax.models.agbnp_jax import AGBNPModel
 
     params = AGBNPParams(radius=radius_d[ids], gamma=gamma_d[ids],
                          alpha=alpha_d[ids], charge=charge_d[ids],

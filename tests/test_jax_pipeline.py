@@ -1,6 +1,6 @@
 """Parity of the jitted flat-tree pipeline against the float64 oracle.
 
-These tests cover the TPU compute path (on CPU, float64): exact node-set
+These tests cover the device compute path (on CPU, float64): exact node-set
 reproduction of the overlap tree, golden-anchor energies, analytic forces vs
 the oracle and vs jax.grad through the whole pipeline.
 """
@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu.models.agbnp_jax import AGBNPModel
-from openmm_agbnp_plugin_tpu.models.oracle import (
+from openmm_agbnp_jax.models.agbnp_jax import AGBNPModel
+from openmm_agbnp_jax.models.oracle import (
     agbnp1_energy_forces,
     gvolsa_energy_forces,
 )
-from openmm_agbnp_plugin_tpu.ops.tree import TreeCaps, check_overflow
+from openmm_agbnp_jax.ops.tree import TreeCaps, check_overflow
 
 
 @pytest.fixture(scope="module")
@@ -51,10 +51,9 @@ def test_agbnp1_parity(gaussvol_system, model_v1):
 
 @pytest.mark.slow
 def test_sorted_segment_reduce_matches_scatter(gaussvol_system, model_v1):
-    """The scan-based upward reduction (bnd path, used on TPU because
-    scatter cost grows with the segment space) must agree with the plain
-    segment-sum scatter path on a real build."""
-    from openmm_agbnp_plugin_tpu.ops.tree import (
+    """The sorted-segment upward reduction (bnd path) must agree with the
+    plain segment-sum scatter path on a real build."""
+    from openmm_agbnp_jax.ops.tree import (
         build_tree, make_level1, reduce_tree,
     )
 
@@ -89,7 +88,7 @@ def test_chunked_sibling_build_matches_oneshot(gaussvol_system, model_v1,
     _CHUNK_BUILD_ELEMS window candidates; what >12k-atom systems use) must
     reproduce the one-shot slice-window build exactly: same node data,
     indices, validity, and counts at every level."""
-    from openmm_agbnp_plugin_tpu.ops import tree as T
+    from openmm_agbnp_jax.ops import tree as T
 
     params, pos = gaussvol_system
     m = model_v1
@@ -175,8 +174,8 @@ def test_translation_invariance(gaussvol_system, model_v1):
 def test_row_structured_build_matches_flat(gaussvol_system, model_v1):
     """The gather-free [N, kmax] row build (pair_rows=True, the MD path)
     must be bitwise-identical to the flat triangular-pair build."""
-    from openmm_agbnp_plugin_tpu.models.agbnp_jax import energy_forces
-    from openmm_agbnp_plugin_tpu.ops.neighbors import (
+    from openmm_agbnp_jax.models.agbnp_jax import energy_forces
+    from openmm_agbnp_jax.ops.neighbors import (
         half_neighbor_pairs, tree_pair_cutoff)
 
     params, pos = gaussvol_system
@@ -197,144 +196,21 @@ def test_row_structured_build_matches_flat(gaussvol_system, model_v1):
 
 
 @pytest.mark.slow
-def test_pallas_pair_path_matches_xla(gaussvol_system):
-    """The fused Pallas pair kernels (heavy-packed screener columns,
-    interpret mode on CPU) must match the dense XLA pair phases."""
-    params, pos = gaussvol_system
-    m_xla = AGBNPModel(params, version=1, dtype=np.float32,
-                       positions=np.asarray(pos), pair_kernel=False)
-    m_pal = AGBNPModel(params, version=1, dtype=np.float32,
-                       positions=np.asarray(pos), pair_kernel=True)
-    e0, f0 = m_xla.energy_forces(pos)
-    e1, f1 = m_pal.energy_forces(pos)
-    f0, f1 = np.asarray(f0), np.asarray(f1)
-    assert float(abs(e1 - e0)) <= 5e-3   # f32 pair-order rounding
-    assert np.abs(f1 - f0).max() <= 2e-6 * np.abs(f0).max()
-
-
-@pytest.mark.slow
-def test_bf16_split_tables_bit_exact(gaussvol_system):
-    """The 3-way bf16 mantissa-split spline tables (single-pass MXU
-    selections, prepare_pair_tables(split_bf16=True)) must reproduce the
-    f32 HIGHEST-precision one-hot contraction BIT-exactly: 0/1 is exact in
-    bf16 and an f32 value is exactly the sum of its three 8-bit mantissa
-    chunks."""
-    import jax.numpy as jnp
-
-    from openmm_agbnp_plugin_tpu.models.i4_tables import I4LookupTables
-    from openmm_agbnp_plugin_tpu.ops.pallas import pairs as PK
-
-    params, pos = gaussvol_system
-    t = I4LookupTables(params.radii_vdw, params.ishydrogen)
-    n, tile = params.n, 128
-    npad = PK.pad_to(n, tile)
-    hidx = np.nonzero(np.asarray(params.ishydrogen) == 0)[0]
-    nhpad = PK.pad_to(len(hidx), tile)
-    hids = np.full(nhpad, -1, np.int32)
-    hids[:len(hidx)] = hidx
-    posn = np.asarray(pos, np.float32)
-    pos_pad = np.pad(posn, ((0, npad - n), (0, 0))).T
-    pos_h = np.zeros((nhpad, 3), np.float32)
-    pos_h[:len(hidx)] = posn[hidx]
-    s = np.random.default_rng(0).uniform(0.3, 1.0, nhpad).astype(np.float32)
-
-    outs = []
-    for split in (False, True):
-        rowY, cols_oh = PK.prepare_pair_tables(
-            t.type_screened, t.type_screener, t.yval, t.y2val,
-            split_bf16=split)
-        tdt = rowY.dtype if split else np.float32
-        rowY_pad = np.pad(rowY, ((0, npad - n), (0, 0))).astype(tdt)
-        coh = np.pad(cols_oh[hidx],
-                     ((0, nhpad - len(hidx)), (0, 0))).astype(tdt)
-        raw = PK.born_sums(jnp.asarray(pos_pad), jnp.asarray(pos_h.T),
-                           jnp.asarray(hids), jnp.asarray(rowY_pad),
-                           jnp.asarray(coh), jnp.asarray(s), n, tile,
-                           interpret=True)
-        # regression: list-form out_shape makes pallas_call return a
-        # 1-tuple; born_sums must still unwrap to the documented [npad] row
-        assert raw.shape == (npad,)
-        outs.append(np.asarray(raw))
-    np.testing.assert_array_equal(outs[0], outs[1])
-    # save_qd=True (the Q/dQ-tile-sharing path) must agree with the
-    # row-only path on the accumulator itself
-    raw_qd = PK.born_sums(jnp.asarray(pos_pad), jnp.asarray(pos_h.T),
-                          jnp.asarray(hids), jnp.asarray(rowY_pad),
-                          jnp.asarray(coh), jnp.asarray(s), n, tile,
-                          interpret=True, save_qd=True)
-    np.testing.assert_array_equal(np.asarray(raw_qd[0]), outs[1])
-
-
-@pytest.mark.slow
-def test_interacting_tile_lists_match_dense(gaussvol_system):
-    """The compacted interacting-tile-list pair sweeps (born_sums_tiles /
-    gb_pair_tiles / descreening_tiles over AABB-filtered tile pairs, the
-    TPU analogue of the reference's neighbor-tile rebind,
-    OpenCLAGBNPKernels.cpp:3521-3530) must (a) actually drop tiles on an
-    extended system, (b) reproduce the dense-grid Pallas path bit-for-bit
-    (the list is conservative: it only skips tiles whose every pair the
-    dense kernels' masks reject), and (c) detect budget overflow and
-    recover exactly through check_and_grow."""
-    from openmm_agbnp_plugin_tpu.models.oracle import AGBNPParams
-    from openmm_agbnp_plugin_tpu.ops.pallas import pairs as PK
-
-    rng = np.random.default_rng(1)
-    n = 900
-    # dense 27-nm rod: tile AABBs are short segments, so distant tile
-    # pairs provably drop at a 1 nm range even after the x1.5 budget
-    # headroom's 8-alignment
-    pos = np.stack([0.03 * np.arange(n), 0.2 * rng.standard_normal(n),
-                    0.2 * rng.standard_normal(n)], 1)
-    ish = (np.arange(n) % 3 == 2).astype(np.int64)
-    params = AGBNPParams(radius=np.where(ish > 0, 0.12, 0.165),
-                         gamma=np.where(ish > 0, 0.0, 48.9528),
-                         alpha=np.where(ish > 0, -20.0, -60.0),
-                         charge=rng.uniform(-0.3, 0.3, n), ishydrogen=ish)
-    kw = dict(version=1, dtype=np.float32, positions=pos, pair_kernel=True,
-              cutoff=1.0, descreen_horizon="cutoff")
-    m_dense = AGBNPModel(params, pair_tiles=False, **kw)
-    m_tiles = AGBNPModel(params, **kw)
-
-    lb, lg = m_tiles.pair_tiles
-    tile = PK.pick_tile(n)
-    nti = m_tiles.pair_pad // tile
-    ntj = m_tiles.arrays["hids_pad"].shape[0] // tile
-    assert lb < nti * ntj          # (a) born/descreening tiles dropped
-    assert lg < nti * (nti + 1) // 2   # (a) GB triangular tiles dropped
-
-    e0, f0 = m_dense.energy_forces(pos)
-    e1, f1 = m_tiles.energy_forces(pos)
-    assert float(e1) == float(e0)                      # (b) bit-equal
-    np.testing.assert_array_equal(np.asarray(f1), np.asarray(f0))
-
-    # (c) a deliberately tiny budget overflows, is detected, and the
-    # regrown evaluation is again exact
-    m_small = AGBNPModel(params, pair_tiles=(8, 8), **kw)
-    _, _, out = m_small.energy_forces(pos, with_details=True)
-    cb, cg = np.asarray(out["diag"]["pair_tile_counts"])
-    assert cb > 8 and cg > 8
-    assert m_small.check_and_grow(out["diag"])
-    assert m_small.pair_tiles[0] >= cb and m_small.pair_tiles[1] >= cg
-    e2, f2 = m_small.energy_forces(pos)
-    assert float(e2) == float(e0)
-    np.testing.assert_array_equal(np.asarray(f2), np.asarray(f0))
-
-
-@pytest.mark.slow
 def test_descreen_horizon_pallas_matches_xla(gaussvol_system):
     """OpenCL-backend cutoff semantics (Born/descreening sweeps truncated at
-    the nonbonded cutoff, reference OpenCLAGBNPKernels.cpp:2258): the Pallas
-    and XLA paths must agree under the same truncated horizon, and the
-    truncation must actually change the energy vs the 2 nm default."""
+    the nonbonded cutoff, reference OpenCLAGBNPKernels.cpp:2258): the f32
+    XLA path must agree with the f64 one under the same truncated horizon,
+    and the truncation must actually change the energy vs the 2 nm
+    default."""
     params, pos = gaussvol_system
     kw = dict(version=1, cutoff=1.0, positions=np.asarray(pos))
-    m_xla = AGBNPModel(params, dtype=np.float64, pair_kernel=False,
-                       descreen_horizon="cutoff", **kw)
-    m_pal = AGBNPModel(params, dtype=np.float32, pair_kernel=True,
-                       descreen_horizon="cutoff", **kw)
-    m_ref = AGBNPModel(params, dtype=np.float64, pair_kernel=False, **kw)
-    e0, f0 = m_xla.energy_forces(pos)
-    e1, f1 = m_pal.energy_forces(pos)
+    m_64 = AGBNPModel(params, dtype=np.float64, descreen_horizon="cutoff",
+                      **kw)
+    m_32 = AGBNPModel(params, dtype=np.float32, descreen_horizon="cutoff",
+                      **kw)
+    m_ref = AGBNPModel(params, dtype=np.float64, **kw)
+    e0, f0 = m_64.energy_forces(pos)
+    e1, f1 = m_32.energy_forces(pos)
     er, _ = m_ref.energy_forces(pos)
     f0, f1 = np.asarray(f0), np.asarray(f1)
     assert abs(float(e1) - float(e0)) <= 5e-3
@@ -349,9 +225,9 @@ def test_reduce_tree2_selfvol_a_channel():
     self-volumes exactly on both parameterizations."""
     import jax.numpy as jnp
 
-    from openmm_agbnp_plugin_tpu.models.agbnp_jax import prepare_arrays
-    from openmm_agbnp_plugin_tpu.models.oracle import AGBNPParams
-    from openmm_agbnp_plugin_tpu.ops import tree as T
+    from openmm_agbnp_jax.models.agbnp_jax import prepare_arrays
+    from openmm_agbnp_jax.models.oracle import AGBNPParams
+    from openmm_agbnp_jax.ops import tree as T
 
     rng = np.random.default_rng(3)
     g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
@@ -390,3 +266,51 @@ def test_reduce_tree2_selfvol_a_channel():
                                rtol=1e-12)
     np.testing.assert_allclose(float(rb["energy"]), float(ref_b["energy"]),
                                rtol=1e-12)
+
+
+@pytest.mark.parametrize("deriv", [False, True], ids=["value", "deriv"])
+def test_spline_lookup_matches_oracle_i4_spline(gaussvol_system, deriv):
+    """The gather-based Q4 spline lookup of the pair phases reproduces the
+    f64 oracle's natural-spline evaluation (I4LookupTables.eval /
+    evalderiv) at random distances over the whole 2 nm grid and random
+    (screened, screener) type pairs."""
+    from openmm_agbnp_jax.models.i4_tables import I4LookupTables
+    from openmm_agbnp_jax.ops.born import spline_lookup
+
+    params, _ = gaussvol_system
+    t = I4LookupTables(params.radii_vdw, params.ishydrogen)
+    rng = np.random.default_rng(11)
+    m = 400
+    d = rng.uniform(0.0, 1.999, m)
+    ti = rng.integers(0, t.ntypes_screened, m)
+    tj = rng.integers(0, t.ntypes_screener, m)
+    val, dval = spline_lookup(jnp.asarray(d), jnp.asarray(ti),
+                              jnp.asarray(tj), t.yval.reshape(-1),
+                              t.y2val.reshape(-1), t.ntypes_screener,
+                              deriv=deriv)
+    got = np.asarray(dval if deriv else val)
+    oracle = t.evalderiv if deriv else t.eval
+    ref = np.array([oracle(x, a, b) for x, a, b in zip(d, ti, tj)])
+    np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
+
+
+def test_build_budgets_follow_memory_limit(monkeypatch):
+    """The one-shot/chunked tree build budgets are candidate counts derived
+    from the default device's memory limit (the named host constant where
+    the device reports none) and the unpadded candidate row bytes; a module
+    attribute that is set overrides its budget."""
+    from openmm_agbnp_jax.ops import tree as T
+
+    for dtype in (np.float32, np.float64):
+        per = T._candidate_row_bytes(dtype)
+        assert per == (T._D + 6) * np.dtype(dtype).itemsize + 12
+        stats = jax.devices()[0].memory_stats() or {}
+        limit = stats.get("bytes_limit", T._HOST_MEMORY_BYTES)
+        total, level_min, build_elems = T._build_budgets(dtype)
+        assert total == int(limit * T._SLICE_BUILD_SHARE) // per
+        assert level_min == int(limit * T._CHUNK_LEVEL_SHARE) // per
+        assert build_elems == int(limit * T._CHUNK_BUILD_SHARE) // per
+        assert total > build_elems > level_min > 0
+    monkeypatch.setattr(T, "_SLICE_BUILD_TOTAL", 7)
+    monkeypatch.setattr(T, "_CHUNK_LEVEL_MIN", 0)
+    assert T._build_budgets(np.float32)[:2] == (7, 0)

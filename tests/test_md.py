@@ -14,8 +14,8 @@ DATA = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "data")
 
 @pytest.fixture(scope="module")
 def trpcage_sim():
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.md.simulation import Simulation
 
     dms = load_dms(os.path.join(DATA, "trpcage_agbnp1.dms"))
     return Simulation(dms, version=1, dtype=np.float64)
@@ -49,7 +49,7 @@ def test_verlet_energy_conservation(trpcage_sim):
 
 
 def test_fire_minimizer(trpcage_sim):
-    from openmm_agbnp_plugin_tpu.md.minimize import fire_minimize
+    from openmm_agbnp_jax.md.minimize import fire_minimize
 
     fn = trpcage_sim.force_fn()
     pos, energies = fire_minimize(fn, trpcage_sim.positions, maxiter=50)
@@ -57,8 +57,8 @@ def test_fire_minimizer(trpcage_sim):
 
 
 def test_virtual_sites_project_and_spread():
-    from openmm_agbnp_plugin_tpu.api.hydration import HydrationSites
-    from openmm_agbnp_plugin_tpu.md.vsites import (
+    from openmm_agbnp_jax.api.hydration import HydrationSites
+    from openmm_agbnp_jax.md.vsites import (
         project_positions,
         spread_forces,
     )
@@ -84,7 +84,7 @@ def test_virtual_sites_project_and_spread():
 
 
 def test_hashtable_parity():
-    from openmm_agbnp_plugin_tpu.utils.hashtable import AGBNPHtable
+    from openmm_agbnp_jax.utils.hashtable import AGBNPHtable
 
     t = AGBNPHtable(10)
     assert t.size() == 16
@@ -96,7 +96,7 @@ def test_hashtable_parity():
 
 
 def test_dms_save_roundtrip(tmp_path):
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms, save_dms
+    from openmm_agbnp_jax.io.dms import load_dms, save_dms
 
     src = os.path.join(DATA, "trpcage_agbnp1.dms")
     dst = str(tmp_path / "out.dms")
@@ -109,28 +109,6 @@ def test_dms_save_roundtrip(tmp_path):
     np.testing.assert_allclose(dms2.velocities, newvel, atol=1e-12)
 
 
-def test_fused_mm_pair_kernel_matches_xla():
-    """MM LJ/Coulomb riding the GB pair kernel (in-kernel exclusions,
-    interpret mode on CPU) must match the XLA dense-mask formulation."""
-    import jax
-    import numpy as np
-
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    dms = load_dms(os.path.join(here, "..", "benchmarks", "data",
-                                "trpcage_agbnp1.dms"))
-    pos = np.asarray(dms.positions, np.float32)
-    sim_f = Simulation(dms, version=1, dtype=np.float32, pair_kernel=True)
-    sim_x = Simulation(dms, version=1, dtype=np.float32, pair_kernel=False)
-    e1, f1, _ = jax.jit(sim_f.force_fn())(pos)
-    e0, f0, _ = jax.jit(sim_x.force_fn())(pos)
-    f1, f0 = np.asarray(f1), np.asarray(f0)
-    assert abs(float(e1 - e0)) <= 0.05
-    assert np.abs(f1 - f0).max() <= 2e-6 * np.abs(f0).max()
-
-
 def test_run_md_panic_button_regrow():
     """run_md with deliberately undersized tree capacities must detect the
     overflow, regrow, retry the segment, and land on the exact same
@@ -139,9 +117,9 @@ def test_run_md_panic_button_regrow():
     import jax
     import numpy as np
 
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
-    from openmm_agbnp_plugin_tpu.ops.tree import TreeCaps
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.md.simulation import Simulation
+    from openmm_agbnp_jax.ops.tree import TreeCaps
 
     here = os.path.dirname(os.path.abspath(__file__))
     dms = load_dms(os.path.join(here, "..", "benchmarks", "data",
@@ -179,7 +157,7 @@ def test_mts_inner1_matches_plain_langevin(trpcage_sim):
 def test_mts_langevin_stable_2fs(trpcage_sim):
     """2 fs outer / 1 fs bonded substeps: finite energies, sane
     temperature, no tree overflow over a short run."""
-    from openmm_agbnp_plugin_tpu.md.integrators import temperature
+    from openmm_agbnp_jax.md.integrators import temperature
 
     sim = trpcage_sim
     key = jax.random.PRNGKey(1)
@@ -198,7 +176,7 @@ def test_mts_verlet_energy_conservation(trpcage_sim):
     example/test_agbnp.py:58-64)."""
     from functools import partial
 
-    from openmm_agbnp_plugin_tpu.md.integrators import mts_verlet_step
+    from openmm_agbnp_jax.md.integrators import mts_verlet_step
 
     sim = trpcage_sim
     slow, fast = sim.force_fn(split=True)
@@ -225,7 +203,7 @@ def test_run_md_checkpoint_exact_resume(trpcage_sim, tmp_path):
     reproduces the uninterrupted trajectory bitwise — beyond the
     reference's statistical .dms restart (example/trpcage_benchmark.py:
     9-43), which loses the RNG stream."""
-    from openmm_agbnp_plugin_tpu.io.checkpoint import load_checkpoint
+    from openmm_agbnp_jax.io.checkpoint import load_checkpoint
 
     sim = trpcage_sim
     kw = dict(dt=0.001, neighbor_every=3, segment=6, seed=3)

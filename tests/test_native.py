@@ -9,7 +9,7 @@ bounds that cover the measured build.
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu.runtime import native
+from openmm_agbnp_jax.runtime import native
 
 
 def test_native_available():
@@ -20,8 +20,8 @@ def test_native_available():
 
 @pytest.fixture(scope="module")
 def oracle_run(gaussvol_system):
-    from openmm_agbnp_plugin_tpu.models.constants import sphere_volume
-    from openmm_agbnp_plugin_tpu.models.oracle import GaussVol
+    from openmm_agbnp_jax.models.constants import sphere_volume
+    from openmm_agbnp_jax.models.oracle import GaussVol
 
     params, pos = gaussvol_system
     radii = np.asarray(params.radii_large)
@@ -65,7 +65,7 @@ def test_size_tree_caps_covers_build(oracle_run):
     build (the property the PanicButton relies on at startup)."""
     import jax.numpy as jnp
 
-    from openmm_agbnp_plugin_tpu.ops import tree as T
+    from openmm_agbnp_jax.ops import tree as T
 
     params, pos, radii, volumes, gammas, gv, _ = oracle_run
     caps = native.size_tree_caps(params, pos, boost=1.2)
@@ -96,7 +96,7 @@ def test_native_agbnp1_full_pipeline(gaussvol_system):
 
     This is the independent full-pipeline ground truth: native C++ vs JAX
     share no code, only the published model."""
-    from openmm_agbnp_plugin_tpu.models.agbnp_jax import AGBNPModel
+    from openmm_agbnp_jax.models.agbnp_jax import AGBNPModel
 
     params, pos = gaussvol_system
     nat = native.NativeAGBNP1(params)
@@ -115,7 +115,7 @@ def test_native_agbnp1_full_pipeline(gaussvol_system):
 
     # vs the JAX f64 pipeline (same spline-LUT semantics, tables built
     # independently): ~1e-11 agreement expected, 1e-9 asserted
-    m = AGBNPModel(params, version=1, dtype=np.float64, pair_kernel=False)
+    m = AGBNPModel(params, version=1, dtype=np.float64)
     e, f, det = m.energy_forces(pos, with_details=True)
     f = np.asarray(f)
     assert abs(out["energy"] - float(e)) <= 1e-9 * abs(float(e))

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu.ops.neighbors import (
+from openmm_agbnp_jax.ops.neighbors import (
     CellGrid,
     cell_neighbor_pairs,
     half_neighbor_pairs,
@@ -68,8 +68,8 @@ def test_cell_overflow_detected():
 def test_trpcage_cell_list_matches(fixture_dir):
     import os
 
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.ops.neighbors import tree_pair_cutoff
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.ops.neighbors import tree_pair_cutoff
 
     dms = load_dms(os.path.join(os.path.dirname(fixture_dir), "..",
                                 "benchmarks", "data", "trpcage_agbnp1.dms"))

@@ -8,7 +8,7 @@ v1.reference, computed by the OpenMM Reference platform in float64 on the
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu.models.oracle import (
+from openmm_agbnp_jax.models.oracle import (
     agbnp1_energy_forces,
     gvolsa_energy_forces,
 )

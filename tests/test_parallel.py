@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu.parallel.sharding import (
+from openmm_agbnp_jax.parallel.sharding import (
     atom_mesh,
     replica_mesh,
     sharded_pair_phases,
@@ -16,8 +16,8 @@ from openmm_agbnp_plugin_tpu.parallel.sharding import (
 def tiny_sim(fixture_dir):
     import os
 
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.md.simulation import Simulation
 
     dms = load_dms(os.path.join(os.path.dirname(fixture_dir), "..",
                                 "benchmarks", "data", "trpcage_agbnp1.dms"))
@@ -35,9 +35,9 @@ def test_sharded_pair_phases_match_dense(gaussvol_system):
     on the 264-atom reference fixture."""
     from functools import partial
 
-    from openmm_agbnp_plugin_tpu.models.agbnp_jax import (
+    from openmm_agbnp_jax.models.agbnp_jax import (
         energy_forces, prepare_arrays)
-    from openmm_agbnp_plugin_tpu.ops.tree import TreeCaps
+    from openmm_agbnp_jax.ops.tree import TreeCaps
 
     params, pos = gaussvol_system
     arrays = prepare_arrays(params, dtype=np.float64)
@@ -72,10 +72,10 @@ def test_sharded_tree_and_pair_pipeline_match_dense(gaussvol_system):
     the same topology to f64 roundoff on the 264-atom reference fixture."""
     from functools import partial
 
-    from openmm_agbnp_plugin_tpu.models.agbnp_jax import (
+    from openmm_agbnp_jax.models.agbnp_jax import (
         energy_forces, prepare_arrays)
-    from openmm_agbnp_plugin_tpu.ops import tree as T
-    from openmm_agbnp_plugin_tpu.parallel.sharding import (
+    from openmm_agbnp_jax.ops import tree as T
+    from openmm_agbnp_jax.parallel.sharding import (
         sharded_energy_forces)
 
     params, pos = gaussvol_system
@@ -120,7 +120,7 @@ def test_sharded_tree_and_pair_pipeline_match_dense(gaussvol_system):
 def test_replica_ensemble_md(tiny_sim):
     """8 replicas sharded over 8 CPU devices; energies diverge per replica
     (independent noise) and stay finite."""
-    from openmm_agbnp_plugin_tpu.parallel.ensemble import ReplicaEnsemble
+    from openmm_agbnp_jax.parallel.ensemble import ReplicaEnsemble
 
     ens = ReplicaEnsemble(tiny_sim, n_replicas=8)
     # nsteps NOT a multiple of the rebuild window: 5 = 2 windows of 2 + a
@@ -146,7 +146,7 @@ def test_sharded_md_runner_matches_plain(tiny_sim):
     AGBNP pair + tree passes sharded over the 8-device atoms mesh and must
     reproduce the single-device runner's trajectory (same PRNG stream) to
     f64 roundoff."""
-    from openmm_agbnp_plugin_tpu.parallel.sharding import atom_mesh
+    from openmm_agbnp_jax.parallel.sharding import atom_mesh
 
     mesh = atom_mesh(8)
     run_s = tiny_sim.make_langevin_runner(dt=0.001, neighbor_every=6,

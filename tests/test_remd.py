@@ -6,7 +6,7 @@ by equivalence: with all rung temperatures equal, every swap is accepted
 but the dynamics must be untouched, so the REMD trajectory equals the
 plain replica-ensemble trajectory exactly (same keys, same window
 structure).  The reference plugin has no REMD (exchanges live in external
-host schedulers); this subsystem is native to the TPU build.
+host schedulers); this subsystem is native to this implementation.
 """
 
 import os
@@ -16,8 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu.md.integrators import KB
-from openmm_agbnp_plugin_tpu.parallel.remd import (
+from openmm_agbnp_jax.md.integrators import KB
+from openmm_agbnp_jax.parallel.remd import (
     TemperatureREMD,
     attempt_swaps,
     geometric_ladder,
@@ -87,8 +87,8 @@ def test_geometric_ladder():
 
 @pytest.fixture(scope="module")
 def trp_sim():
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.md.simulation import Simulation
 
     path = os.path.join(os.path.dirname(__file__), "..", "benchmarks",
                         "data", "trpcage_agbnp1.dms")
@@ -101,7 +101,7 @@ def test_remd_equal_temps_matches_ensemble(trp_sim):
     velocity rescale is 1 and the per-replica temperature never changes —
     so REMD must reproduce the plain ReplicaEnsemble trajectory exactly
     (identical keys and stale-topology window structure)."""
-    from openmm_agbnp_plugin_tpu.parallel.ensemble import ReplicaEnsemble
+    from openmm_agbnp_jax.parallel.ensemble import ReplicaEnsemble
 
     R, ne, ncycles = 2, 5, 2
     remd = TemperatureREMD(trp_sim, [300.0] * R)

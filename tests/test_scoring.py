@@ -8,8 +8,8 @@ batch, mesh-sharded batch, and capacity-regrow variants must all agree.
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu import AGBNPForce, Context, NonbondedMethod
-from openmm_agbnp_plugin_tpu.api.scoring import ConformerScorer
+from openmm_agbnp_jax import AGBNPForce, Context, NonbondedMethod
+from openmm_agbnp_jax.api.scoring import ConformerScorer
 
 
 def _build_force(params, version=1):
@@ -32,8 +32,8 @@ def small_system(fixture_dir):
     """First 64 atoms of the reference fixture: fast, still tree-rich."""
     import os
 
-    from openmm_agbnp_plugin_tpu.io.gaussvol_dat import load_gaussvol_dat
-    from openmm_agbnp_plugin_tpu.models.oracle import AGBNPParams
+    from openmm_agbnp_jax.io.gaussvol_dat import load_gaussvol_dat
+    from openmm_agbnp_jax.models.oracle import AGBNPParams
 
     pos, radius, charge, gamma, alpha, ish = load_gaussvol_dat(
         os.path.join(fixture_dir, "gaussvol.dat"))
@@ -71,11 +71,11 @@ def test_batch_matches_context(small_system, version):
 def test_batch_v2_matches_model(small_system):
     """AGBNP2 batch scoring equals the one-shot AGBNP2Model evaluation per
     conformer (energy and autodiff forces)."""
-    from openmm_agbnp_plugin_tpu.models.agbnp2_jax import AGBNP2Model
+    from openmm_agbnp_jax.models.agbnp2_jax import AGBNP2Model
 
     params, pos = small_system
     n = 40
-    from openmm_agbnp_plugin_tpu.models.oracle import AGBNPParams
+    from openmm_agbnp_jax.models.oracle import AGBNPParams
     p40 = AGBNPParams(radius=params.radius[:n], gamma=params.gamma[:n],
                       alpha=params.alpha[:n], charge=params.charge[:n],
                       ishydrogen=params.ishydrogen[:n])
@@ -113,7 +113,7 @@ def test_single_conformer_and_shapes(small_system):
 def test_regrow_from_tiny_caps(small_system):
     """Deliberately undersized capacities: the PanicButton loop regrows from
     the worst conformer in the batch and still matches the healthy scorer."""
-    from openmm_agbnp_plugin_tpu.ops.tree import TreeCaps
+    from openmm_agbnp_jax.ops.tree import TreeCaps
 
     params, pos = small_system
     force = _build_force(params)
@@ -129,7 +129,7 @@ def test_regrow_from_tiny_caps(small_system):
 def test_mesh_sharded_batch(small_system):
     """Batch axis sharded over the 8-device CPU mesh; non-multiple batch
     size exercises the padding path."""
-    from openmm_agbnp_plugin_tpu.parallel.sharding import replica_mesh
+    from openmm_agbnp_jax.parallel.sharding import replica_mesh
 
     params, pos = small_system
     force = _build_force(params)
@@ -167,7 +167,7 @@ def test_update_parameters_batch_v2(small_system):
     the UPDATED force), or scores silently come from the old parameters."""
     params, pos = small_system
     n = 40
-    from openmm_agbnp_plugin_tpu.models.oracle import AGBNPParams
+    from openmm_agbnp_jax.models.oracle import AGBNPParams
     p40 = AGBNPParams(radius=params.radius[:n], gamma=params.gamma[:n],
                       alpha=params.alpha[:n], charge=params.charge[:n],
                       ishydrogen=params.ishydrogen[:n])

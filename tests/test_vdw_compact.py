@@ -17,8 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openmm_agbnp_plugin_tpu.models.constants import VOLMINA
-from openmm_agbnp_plugin_tpu.ops import tree as T
+from openmm_agbnp_jax.models.constants import VOLMINA
+from openmm_agbnp_jax.ops import tree as T
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "data")
 
@@ -27,7 +27,7 @@ def _tiny_lattice_system():
     """Dense 64-atom jittered lattice: multi-level tree, mixed live/dead
     vdW rows, seconds to build on one CPU core (the 264-atom fixture takes
     ~a minute and runs as the slow parametrization below)."""
-    from openmm_agbnp_plugin_tpu.models.oracle import AGBNPParams
+    from openmm_agbnp_jax.models.oracle import AGBNPParams
 
     rng = np.random.default_rng(11)
     g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
@@ -49,7 +49,7 @@ def _tiny_lattice_system():
 def built_vdw(request):
     """Full build + vdW rescan levels (tiny lattice by default; the
     264-atom reference fixture in the slow run)."""
-    from openmm_agbnp_plugin_tpu.models.agbnp_jax import prepare_arrays
+    from openmm_agbnp_jax.models.agbnp_jax import prepare_arrays
 
     if request.param == "tiny64":
         params, pos = _tiny_lattice_system()
@@ -159,7 +159,7 @@ def test_energy_forces_compact_exact(built_vdw):
     evaluation at the compaction point: identical energy and forces to
     float64 roundoff (the compacted pass only reroutes the WU force term,
     whose dropped rows contribute exact zeros)."""
-    from openmm_agbnp_plugin_tpu.models.agbnp_jax import energy_forces
+    from openmm_agbnp_jax.models.agbnp_jax import energy_forces
 
     a, params, pos, lvl1_vdw, levels_vdw = built_vdw
     topo = T.tree_topology(levels_vdw)
@@ -186,8 +186,8 @@ def test_energy_forces_compact_exact(built_vdw):
 def test_md_vdw_compact_matches_full(tmp_path):
     """Short MD windows: the compacted-WU trajectory matches the
     full-WU-pass trajectory (dropped rows stay dead over a short window)."""
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.md.simulation import Simulation
 
     dms = load_dms(os.path.join(DATA, "trpcage_agbnp1.dms"))
     sim = Simulation(dms, version=1, dtype=np.float64)
@@ -211,8 +211,8 @@ def test_md_vdw_compact_matches_full(tmp_path):
 
 def test_wu_regrow_updates_caps(tmp_path):
     """_check_overflow flags WU truncation and _regrow grows the caps."""
-    from openmm_agbnp_plugin_tpu.io.dms import load_dms
-    from openmm_agbnp_plugin_tpu.md.simulation import Simulation
+    from openmm_agbnp_jax.io.dms import load_dms
+    from openmm_agbnp_jax.md.simulation import Simulation
 
     dms = load_dms(os.path.join(DATA, "trpcage_agbnp1.dms"))
     sim = Simulation(dms, version=1, dtype=np.float64)
